@@ -605,11 +605,10 @@ void preprocess(const std::vector<V3>& in, float crop, float res,
 
 // ---------------------------------------------------------------------------
 // Morton-ordered uniform thinning (--thin N): the same spatially uniform
-// Bresenham stride along the Z-curve the TPU pipeline uses when the voxeled
+// Bresenham stride along the Z-curve the JAX pipeline uses when the voxeled
 // cloud exceeds its static n_scan budget (ops/voxel.py
 // voxel_downsample_morton) — offered to the CPU baseline so the two sides
-// can be measured at the SAME per-frame point budget (same-work protocol,
-// round-4 verdict item 1).
+// can be measured at the SAME per-frame point budget (same-work protocol).
 // ---------------------------------------------------------------------------
 
 static inline uint32_t expand10(uint32_t v) {

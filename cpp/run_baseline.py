@@ -50,7 +50,7 @@ def main() -> None:
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--thin", type=int, default=0,
                     help="Morton-ordered uniform thinning of the voxeled "
-                         "scan to N points — the same budget cap the TPU "
+                         "scan to N points — the same budget cap the JAX "
                          "pipeline applies (same-work protocol)")
     args = ap.parse_args()
 

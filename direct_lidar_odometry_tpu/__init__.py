@@ -1,58 +1,28 @@
-"""Direct LiDAR Odometry, TPU-native.
+"""Direct LiDAR Odometry in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 vectr-ucla/direct_lidar_odometry (DLO, RA-L 2022): two-stage GICP LiDAR
 odometry (scan-to-scan + scan-to-submap), adaptive keyframing with
 convex/concave-hull keyframe selection, IMU priors, and map aggregation —
-built as pure-functional fixed-shape array programs for TPU, with
-multi-sequence batching and multi-host sharding layered on top.
+built as pure-functional fixed-shape array programs, with multi-sequence
+batching and multi-device sharding layered on top.
 
-This is NOT a port: the reference is C++/PCL/OpenMP/ROS
-(see /root/reference, cited throughout as ``reference file:line``); here the
-kd-tree becomes a hash-grid gather kernel, the OpenMP loops become fused XLA
-ops, the ROS graph becomes in-process functional composition, and the
-(nonexistent in the reference) distributed layer is JAX shard_map.
+This is NOT a port: the reference is C++/PCL/OpenMP/ROS (cited throughout
+as ``reference file:line``); here the kd-tree becomes a hash-grid gather
+kernel, the OpenMP loops become fused XLA ops, the ROS graph becomes
+in-process functional composition, and the (nonexistent in the reference)
+distributed layer is JAX shard_map.
+
+Importing the package points JAX's persistent compilation cache at
+``JAX_COMPILATION_CACHE_DIR`` or, when that is unset, at
+``<checkout>/.jax_cache`` (utils/cachedir.py).
 """
 
 __version__ = "0.2.0"
 
-import os as _os
+from direct_lidar_odometry_tpu.utils import cachedir as _cachedir
 
-
-def _enable_persistent_compilation_cache() -> None:
-    """Persistent XLA compilation cache (addresses the 67-108 s first-frame
-    compiles measured in BENCH_r01: the pipeline graph is large but identical
-    across runs, so the second process start should pay <5 s warmup).
-
-    Opt out with DLO_TPU_NO_CACHE=1; relocate with DLO_TPU_CACHE_DIR.
-
-    The directory is scoped by a machine signature (utils/cachedir.py):
-    XLA:CPU AOT blobs are feature-set specific and loading another
-    machine's blobs risks SIGILL (observed as cpu_aot_loader mismatch
-    errors when one home dir is shared across builder/driver hosts).
-    """
-    if _os.environ.get("DLO_TPU_NO_CACHE"):
-        return
-    try:
-        import jax
-
-        from direct_lidar_odometry_tpu.utils.cachedir import machine_scoped
-
-        cache_dir = machine_scoped(
-            _os.environ.get(
-                "DLO_TPU_CACHE_DIR",
-                _os.path.join(_os.path.expanduser("~"), ".cache", "dlo_tpu_xla"),
-            )
-        )
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # cache everything that took meaningful compile time, however small
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    except Exception:  # cache is an optimization, never a hard dependency
-        pass
-
-
-_enable_persistent_compilation_cache()
+_cachedir.configure()
 
 from direct_lidar_odometry_tpu.config import DloConfig, load_config
 

@@ -9,7 +9,7 @@ print the live dashboard, write trajectory (KITTI/TUM), export the map
 Usage examples:
     python -m direct_lidar_odometry_tpu --synthetic 100 --out-dir /tmp/run
     python -m direct_lidar_odometry_tpu --kitti /data/kitti --sequence 00 \
-        --config cfg/tpu_dlo.yaml --map-ply map.ply --eval
+        --config cfg/dlo.yaml --map-ply map.ply --eval
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--synthetic", type=int, metavar="N",
                      help="run N synthetic frames (no dataset needed)")
     ap.add_argument("--sequence", default="00", help="KITTI sequence id")
-    ap.add_argument("--config", help="YAML config (see cfg/tpu_dlo.yaml)")
+    ap.add_argument("--config", help="YAML config (see cfg/dlo.yaml)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
                     help="dotted config override, e.g. gicp.s2s.max_iterations=16")
     ap.add_argument("--frames", type=int, default=None, help="limit frame count")

@@ -1,4 +1,4 @@
-"""Typed configuration tree for the TPU DLO pipeline.
+"""Typed configuration tree for the DLO pipeline.
 
 Mirrors the reference's parameter names and defaults so that runs are
 comparable knob-for-knob:
@@ -8,7 +8,7 @@ comparable knob-for-knob:
 - reference ``src/dlo/odom.cc:182-260`` (``getParams`` defaults)
 - reference ``impl/lsq_registration_impl.hpp:49-63`` (optimizer defaults)
 
-On top of the algorithmic knobs, :class:`ShapeConfig` adds the TPU-specific
+On top of the algorithmic knobs, :class:`ShapeConfig` adds the
 static-shape budget (XLA needs fixed shapes; the reference gets dynamic
 sizes for free from ``std::vector``).
 """
@@ -18,8 +18,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping
-
-import yaml
 
 
 @dataclass(frozen=True)
@@ -122,13 +120,12 @@ class GicpConfig:
     # polish; its guess could land outside S2M's 0.5 m correspondence
     # basin and diverge — ATE 3.3 m vs 0.001 m at production density —
     # hence the mandatory polish stage now.) 1 disables the coarse stage.
-    # n_scan // stride must stay a multiple of 512.
     s2s_coarse_stride: int = 4
     # When False (and the coarse stage is active), the S2S result is the
     # COARSE align alone — the full-resolution polish is skipped and the
     # S2M stage is seeded directly from the strided estimate. This saves
-    # the single most expensive align of the step (~5 ms/frame at
-    # production shapes on v5e) at the cost of a less-polished S2M seed;
+    # the single most expensive align of the step at the cost of a
+    # less-polished S2M seed;
     # round 2 shipped this unconditionally and diverged, but the staged-
     # gate rescue (below) now catches exactly that failure (seed outside
     # the 0.5 m S2M basin -> Mahalanobis trigger -> wide re-register).
@@ -167,7 +164,7 @@ class GicpConfig:
     # coarse stage occasionally stalls at elevated error while S2M, seeded
     # well enough, converges in 1 iteration with dense correspondences —
     # measured on the 93-frame bench world) and each false positive costs
-    # a ~75 ms wide-gate re-register. It therefore only triggers the
+    # a wide-gate re-register (two extra aligns). It therefore only triggers the
     # rescue when S2M shows corroborating stress: per-correspondence error
     # above half the S2M threshold. True divergences (round-2 vector) show
     # both signals; re-validated at 0.09 cm on that world after this gate.
@@ -247,7 +244,7 @@ class MapConfig:
 
 @dataclass(frozen=True)
 class ShapeConfig:
-    """Static-shape budget — the TPU-specific part of the config.
+    """Static-shape budget — the XLA-specific part of the config.
 
     Every array in the jitted per-frame step has a fixed shape drawn from
     here; actual sizes are tracked with validity masks. These defaults suit
@@ -281,10 +278,9 @@ class DloConfig:
     """Root configuration, mirroring reference ``cfg/dlo.yaml`` + ``cfg/params.yaml``."""
 
     version: str = "0.1.0"
-    # Neighbor-search backend: "auto" picks per device ("pallas" on TPU —
-    # VMEM-resident tiled distance kernel, see ops/pallas_nn.py; "hashgrid"
-    # elsewhere — cell hashing beats O(Q*T) on CPUs). "brute" is the XLA
-    # tiled-reduction fallback (ops/bruteforce.py).
+    # Neighbor-search backend: "hashgrid" (cell-hash index,
+    # ops/hashgrid.py) or "brute" (exhaustive tiled reduction,
+    # ops/bruteforce.py); "auto" resolves to "hashgrid" (resolve_backend).
     nn_backend: str = "auto"
     # S2S initial guess: "imu" = the reference behavior (IMU rotational
     # prior when enabled, identity otherwise; odom.cc:801-806);
@@ -294,7 +290,7 @@ class DloConfig:
     s2s_prior: str = "imu"
     # Host->device scan transfer encoding: uint16 + per-frame affine
     # (core/cloud.py QuantizedScan, <1 mm quantization at 60 m extent,
-    # 2.2x less PCIe/ICI traffic). Framework addition — the reference is
+    # 2.2x fewer host-to-device bytes). Framework addition — the reference is
     # single-process and never serializes the raw scan.
     quantize_transfer: bool = True
     # Run NaN/crop/voxel/Morton preprocessing on the HOST (C++/numpy, in
@@ -319,13 +315,21 @@ class DloConfig:
         return dataclasses.replace(self, **kw)
 
 
-def resolve_backend(cfg: "DloConfig") -> str:
-    """Resolve nn_backend 'auto' by the default JAX device platform."""
-    if cfg.nn_backend != "auto":
-        return cfg.nn_backend
-    import jax
+NN_BACKENDS = ("hashgrid", "brute")
 
-    return "pallas" if jax.default_backend() == "tpu" else "hashgrid"
+
+def resolve_backend(cfg: "DloConfig") -> str:
+    """The neighbor-search backend to trace: ``cfg.nn_backend``, with
+    "auto" resolved to the hash grid — on the CPU and on the GPU alike,
+    where it measured fastest end to end (PERF.md)."""
+    if cfg.nn_backend == "auto":
+        return "hashgrid"
+    if cfg.nn_backend not in NN_BACKENDS:
+        raise ValueError(
+            f"unknown nn_backend {cfg.nn_backend!r}; expected 'auto' or "
+            f"one of {NN_BACKENDS}"
+        )
+    return cfg.nn_backend
 
 
 def submap_flat_size(cfg: "DloConfig") -> int:
@@ -355,12 +359,14 @@ def _build(cls, data: Mapping[str, Any]):
 def load_config(path: str | None = None, overrides: Mapping[str, Any] | None = None) -> DloConfig:
     """Load a :class:`DloConfig` from a YAML file plus dotted-key overrides.
 
-    The YAML schema is this module's dataclass tree (see ``cfg/tpu_dlo.yaml``),
+    The YAML schema is this module's dataclass tree (see ``cfg/dlo.yaml``),
     the functional equivalent of the reference's two-file ROS-param scheme
     (``launch/dlo.launch:22-23,41``).
     """
     data: dict[str, Any] = {}
     if path is not None:
+        import yaml
+
         with open(path) as f:
             data = yaml.safe_load(f) or {}
     cfg = _build(DloConfig, data)

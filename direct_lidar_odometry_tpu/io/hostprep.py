@@ -3,8 +3,8 @@
 When ``DloConfig.host_preprocess`` is on, the runner preprocesses each
 scan on the host BEFORE transfer instead of on the device: the device
 step then starts from ~n_scan voxel centroids already in Z-order, which
-removes the per-frame 131k-point sort (~2.4 ms of device time at
-production shapes) and shrinks the wire format ~4x. The host work runs
+removes the per-frame 131k-point sort from the device step and shrinks
+the wire format ~4x. The host work runs
 in the runner's existing prep worker thread (GIL-releasing C++), so it
 overlaps device compute — the same division of labor as the reference,
 whose preprocessing (``odom.cc:443-465``) also runs on the CPU that

@@ -25,9 +25,10 @@ def _load():
         return _lib
     path = os.path.abspath(_LIB_PATH)
     if not os.path.exists(path):
-        try:  # best-effort build (g++ is baked into the image)
+        try:  # best-effort build of the library alone (the C++ baseline
+            # target needs OpenMP, which a host may lack)
             subprocess.run(
-                ["make", "-C", os.path.dirname(path)],
+                ["make", "-C", os.path.dirname(path), "libdlo_host.so"],
                 check=True, capture_output=True, timeout=120,
             )
         except (subprocess.SubprocessError, OSError):

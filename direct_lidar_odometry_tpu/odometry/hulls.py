@@ -11,7 +11,7 @@ step), this module computes hull *membership masks* directly on device:
   well-spread directions (Fibonacci sphere) yields exactly the dominant
   hull vertices; with D ~ 2x the keyframe count the miss probability for
   vertices that matter (those spanning large solid angle) vanishes. One
-  [K,3]x[3,D] matmul + argmax — MXU-friendly, O(K*D).
+  [K,3]x[3,D] matmul + argmax, O(K*D).
 
 - **Concave (alpha-shape) surrogate**: a point is on the alpha-shape
   boundary iff some direction has no neighbor within radius 2*alpha

@@ -19,8 +19,8 @@ import jax.numpy as jnp
 from direct_lidar_odometry_tpu.config import DloConfig
 from direct_lidar_odometry_tpu.core import se3
 from direct_lidar_odometry_tpu.core.cloud import PAD_VALUE, PointCloud
-from direct_lidar_odometry_tpu.ops import morton, voxel
-from direct_lidar_odometry_tpu.registration import covariance, gicp
+from direct_lidar_odometry_tpu.ops import voxel
+from direct_lidar_odometry_tpu.registration import covariance
 from direct_lidar_odometry_tpu.odometry.state import KeyframeStore
 
 
@@ -77,18 +77,7 @@ def make_keyframe_cloud(
     # instance (odom.cc:1172-1174), so k here is s2s.k_correspondences (10),
     # not s2m's 20 — s2m's own k is effectively unused upstream because its
     # covariances are always injected externally.
-    if gicp.is_pallas(backend):
-        res = (cfg.preprocessing.voxel_submap.res
-               if cfg.preprocessing.voxel_submap.use else 0.5)
-        # Z-order the keyframe cloud: the pruned moment kernel needs it,
-        # and it keeps the stored cloud coherent for submap assembly
-        zp, zm = morton.sort_cloud(c.points, c.mask)
-        c = PointCloud(points=zp, mask=zm)
-        clo, chi = morton.chunk_aabbs(c.points, c.mask, morton.TARGET_CHUNK)
-        nrm = covariance.estimate_normals_radius_sorted(
-            c.points, c.mask, clo, chi, radius=3.0 * res
-        )
-    elif backend == "brute":
+    if backend == "brute":
         nrm = covariance.estimate_normals_brute(
             c.points, c.mask,
             k=cfg.gicp.s2s.k_correspondences,

@@ -125,7 +125,7 @@ def register_loop_edges(
     and the edge is weight-zeroed exactly when loop closure is needed.
     ``loop_max_iterations`` likewise extends the iteration budget for the
     longer pull. ``lax.map`` keeps one GICP problem in flight at a time —
-    loop edges are few and off the hot path, so VMEM footprint beats
+    loop edges are few and off the hot path, so a small working set beats
     parallelism here.
     """
     import dataclasses as _dc

@@ -20,10 +20,9 @@ import jax
 import jax.numpy as jnp
 
 from direct_lidar_odometry_tpu.config import DloConfig, submap_flat_size
-from direct_lidar_odometry_tpu.ops import hashgrid, morton
+from direct_lidar_odometry_tpu.ops import hashgrid
 from direct_lidar_odometry_tpu.odometry import hulls
 from direct_lidar_odometry_tpu.odometry.state import KeyframeStore, OdomState
-from direct_lidar_odometry_tpu.registration import gicp
 
 
 def k_smallest_members(
@@ -131,13 +130,6 @@ def assemble_submap(
             keep_order = jnp.argsort(d2)[:flat_out]
             pts, msk = pts[keep_order], msk[keep_order]
             nrm, nvl = nrm[keep_order], nvl[keep_order]
-        if gicp.is_pallas(backend):
-            # Z-order the assembled submap so the pruned S2M search kernel
-            # can skip far chunks (ops/morton.py); amortized over every
-            # frame until the member set changes again
-            z = morton.sort_order(pts, msk)
-            pts, msk = pts[z], msk[z]
-            nrm, nvl = nrm[z], nvl[z]
         grid = (
             hashgrid.build(
                 pts, msk,

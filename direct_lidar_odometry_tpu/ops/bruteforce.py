@@ -1,20 +1,16 @@
-"""Brute-force neighbor search — the TPU-native hot path.
+"""Brute-force neighbor search: exhaustive tiled distance reductions.
 
-Profiling on TPU v5e showed the hash-grid's 27-cell candidate gathers are
-lowered by XLA to near-scalar code (~99 ms for one 8k 1-NN pass), while a
-tiled brute-force distance reduction is pure VPU/MXU work with zero
-gathers (~sub-ms for the same problem). On TPU, exhaustive O(Q*T)
-distance evaluation with masked running argmin IS the fast path — the
-"wasted" FLOPs are free compared to memory-divergent code. This mirrors
-how the reference leans on the kd-tree for CPUs (branchy pointer chasing
-is what CPUs are good at, ``nanoflann_impl.hpp:1355-1418``): same
-contract, opposite hardware instincts.
+The plain reference for every 1-NN path (exact, no index, no candidate
+caps) and the "brute" backend. Each tile is a subtract/square/min
+reduction over a [Q, tile] block with a running (min, argmin) carry, work
+that XLA fuses; cost is O(Q*T) regardless of point density, which is the
+opposite trade to the reference's kd-tree (``nanoflann_impl.hpp:1355-1418``)
+and the hash grid (ops/hashgrid.py).
 
 Distances use the difference form ``sum((q - t)^2)`` rather than the
 norm-expansion matmul trick: with world-frame coordinates at hundreds of
 meters, ``|p|^2`` cancellation in f32 would cost ~0.1 m^2 of resolution.
-XLA fuses the subtract/square/reduce into the tile loop, so nothing of
-shape [Q, T, 3] ever materializes.
+Nothing of shape [Q, T, 3] is formed; XLA fuses the subtract/square/reduce.
 
 Contracts match :mod:`direct_lidar_odometry_tpu.ops.hashgrid` queries:
 indices into the target's original order, -1 / masked where not found.
@@ -37,12 +33,16 @@ def query_1nn(
     """Exact 1-NN within ``radius``: ([T,3],[T],[Q,3],[Q]) -> (idx, d2, found).
 
     Tiles the target axis with a running (min, argmin) carry so the
-    per-step working set is [Q, tile].
+    per-step working set is [Q, tile]; a partial last tile is padded with
+    masked-out targets.
     """
     t_total = target_points.shape[0]
-    assert t_total % tile == 0, (t_total, tile)
+    n_tiles = -(-t_total // tile)
+    pad = n_tiles * tile - t_total
+    if pad:
+        target_points = jnp.pad(target_points, ((0, pad), (0, 0)))
+        target_mask = jnp.pad(target_mask, (0, pad))
     radius2 = jnp.asarray(radius, jnp.float32) ** 2
-    n_tiles = t_total // tile
     tpts = target_points.reshape(n_tiles, tile, 3)
     tmask = target_mask.reshape(n_tiles, tile)
 

@@ -2,9 +2,10 @@
 
 The reference runs one LAPACK ``JacobiSVD`` per point to regularize GICP
 covariances (``nano_gicp_impl.hpp:332-352``). Iterative per-matrix
-factorizations are a poor fit for TPUs; for symmetric 3x3 we instead use the
-trigonometric (Cardano) closed form for eigenvalues and cross-product
-eigenvectors — pure elementwise math the VPU eats, fully vmappable.
+factorizations batch poorly as array programs; for symmetric 3x3 we instead
+use the trigonometric (Cardano) closed form for eigenvalues and
+cross-product eigenvectors — pure elementwise math that XLA fuses, fully
+vmappable.
 
 Under PLANE regularization only the *smallest* eigenvector (the surface
 normal) matters, since the regularized covariance is

@@ -1,11 +1,11 @@
-"""Spatial hash-grid neighbor search — the TPU replacement for the kd-tree.
+"""Spatial hash-grid neighbor search — the array-program replacement for the kd-tree.
 
 The reference vendors nanoflann's branch-and-bound kd-tree
 (``include/nano_gicp/impl/nanoflann_impl.hpp:867-1418``) and calls it from
 the GICP hot loops for 1-NN correspondences (``nano_gicp_impl.hpp:192``) and
 k=10/20-NN covariance neighborhoods (``nano_gicp_impl.hpp:313``). Pointer
-chasing and per-point branching are hostile to TPUs, so this module instead
-builds a *sorted cell-hash index*:
+chasing and per-point branching do not fit fixed-shape array programs, so
+this module instead builds a *sorted cell-hash index*:
 
 - quantize points to cells of size equal to the search radius;
 - hash cell coords (Teschner-style prime XOR) into an open table of H slots;

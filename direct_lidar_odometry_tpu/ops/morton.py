@@ -1,17 +1,11 @@
-"""Morton (Z-order) spatial sorting + chunk bounding boxes.
+"""Morton (Z-order) codes.
 
-This is the TPU replacement for the *structure* of the reference's kd-tree
-(``nanoflann_impl.hpp:867-1012``: bbox-midpoint splits). A kd-tree prunes
-branches whose bounding box lies beyond the query radius; here the same
-pruning happens at tile granularity: clouds are sorted by Morton code so
-that contiguous chunks are spatially compact, per-chunk AABBs are
-precomputed, and the Pallas search kernels branch-skip whole
-[query-tile x target-chunk] blocks whose AABB distance exceeds the search
-radius (see ops/pallas_nn.py, ops/pallas_cov.py).
-
-Sorting is a once-per-cloud cost (~0.5 ms at 65k on v5e), pruning saves
-~10x on every subsequent O(Q*T) pass. Rigid transforms preserve locality,
-so a scan sorted once stays coherent through every GICP iteration.
+Host preprocessing (io/hostprep.py, cpp/dlo_host.cpp) emits each scan's
+voxel centroids in Z-order, and :func:`ops.voxel.voxel_downsample_morton`
+is its device-side reference. Z-order keeps consecutive points spatially
+close, so a strided subsample of a scan (the coarse S2S stage,
+odometry/pipeline.py) is spread evenly through space, and a capacity
+overflow drops voxels evenly along the curve.
 """
 
 from __future__ import annotations
@@ -21,17 +15,6 @@ import jax.numpy as jnp
 # quantization cell for the 10-bit-per-axis Morton code. Only locality
 # quality depends on this, never correctness; 1024 cells cover +-256 m.
 DEFAULT_CELL = 0.5
-
-# Target-side chunk granularity for the branch-and-bound kernels: clouds
-# are chunked into runs of this many consecutive Z-ordered points, and the
-# pruned kernels (ops/pallas_nn.py, ops/pallas_cov.py) skip whole chunks
-# by AABB gap. Finer chunks = tighter AABBs = more skips, but more
-# candidate-table SMEM ([Qc, C] grows with C = N/TARGET_CHUNK) and more
-# loop iterations. Every chunk_aabbs caller and both kernels key off this
-# constant so it can be tuned in one place (DLO_TARGET_CHUNK env for A/B).
-import os as _os
-
-TARGET_CHUNK = int(_os.environ.get("DLO_TARGET_CHUNK", "512"))
 
 
 def _part_bits(x: jnp.ndarray) -> jnp.ndarray:
@@ -57,53 +40,3 @@ def morton_codes(
     q = jnp.clip((points - origin) / cell, 0.0, 1023.0).astype(jnp.uint32)
     code = _part_bits(q[:, 0]) | (_part_bits(q[:, 1]) << 1) | (_part_bits(q[:, 2]) << 2)
     return jnp.where(mask, code, jnp.uint32(0xFFFFFFFF))
-
-
-def sort_order(
-    points: jnp.ndarray, mask: jnp.ndarray, cell: float = DEFAULT_CELL
-) -> jnp.ndarray:
-    """[N] int32 permutation putting the cloud in Z-order, invalid last."""
-    import jax
-
-    codes = morton_codes(points, mask, cell)
-    idx = jnp.arange(points.shape[0], dtype=jnp.int32)
-    _, order = jax.lax.sort_key_val(codes, idx)
-    return order
-
-
-def sort_cloud(
-    points: jnp.ndarray, mask: jnp.ndarray, cell: float = DEFAULT_CELL
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Z-order the cloud directly: ``(points [N,3], mask [N])`` sorted.
-
-    Coordinates ride along as sort payloads — one multi-operand sort beats
-    :func:`sort_order` + two gathers (~1.6x at 131k on v5e). Invalid points
-    sort last (sentinel code 0xFFFFFFFF).
-    """
-    import jax
-
-    codes = morton_codes(points, mask, cell)
-    _, sx, sy, sz, sv = jax.lax.sort(
-        (codes, points[:, 0], points[:, 1], points[:, 2],
-         mask.astype(jnp.float32)),
-        num_keys=1,
-    )
-    return jnp.stack([sx, sy, sz], axis=-1), sv > 0.5
-
-
-def chunk_aabbs(
-    points: jnp.ndarray, mask: jnp.ndarray, chunk: int
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Masked per-chunk bounds. [N,3],[N] -> (lo [3,C], hi [3,C]).
-
-    Empty chunks give (+inf, -inf), which makes every AABB-distance test
-    against them +inf — always skipped, never wrong.
-    """
-    n = points.shape[0]
-    assert n % chunk == 0, (n, chunk)
-    c = n // chunk
-    p = points.reshape(c, chunk, 3)
-    m = mask.reshape(c, chunk, 1)
-    lo = jnp.min(jnp.where(m, p, jnp.inf), axis=1)    # [C, 3]
-    hi = jnp.max(jnp.where(m, p, -jnp.inf), axis=1)   # [C, 3]
-    return lo.T.astype(jnp.float32), hi.T.astype(jnp.float32)

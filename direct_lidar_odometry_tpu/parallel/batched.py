@@ -2,7 +2,7 @@
 
 The reference is a single-robot, single-process system with no distributed
 capability (SURVEY.md §2 parallelism accounting). Odometry is inherently
-sequential in time, so the TPU throughput axis is *batching independent
+sequential in time, so the device throughput axis is *batching independent
 sequences*: the per-frame step is pure, so ``vmap`` turns it into a
 ``[B, ...]`` step with zero code change, and ``shard_map`` (see
 ``sharded.py``) lays the batch over a device mesh.

@@ -5,7 +5,7 @@ no global refinement): periodically refine the keyframe poses given
 relative-pose constraints (odometry chains and any loop-closure matches),
 which re-anchors the map for long trajectories.
 
-TPU-first design choices:
+Design choices:
 - residuals ``e_ij = log(Z_ij^-1 X_i^-1 X_j)`` batched over constraints
   (vmap over [M]), with ANALYTIC first-order Jacobians of the same
   pseudo-exponential retraction the GICP solver uses
@@ -21,8 +21,8 @@ TPU-first design choices:
   Analytic rather than jacfwd because ``so3_log``'s arccos has an
   unbounded derivative at zero residual (every chain edge starts there);
 - the normal system is assembled DENSE: H is [6K, 6K]. For K <= 1024
-  that is a 6144^2 matrix — a shape the MXU solves faster than any
-  sparse-scatter pipeline XLA could produce;
+  that is a 6144^2 matrix: one dense factorization instead of a
+  sparse-scatter pipeline (its cost on the GPU is in PERF.md);
 - gauge freedom fixed by pinning pose 0 with a strong prior;
 - the distributed form shards the *constraint set* across devices, psums
   the per-shard H/b contributions over the mesh, and solves replicated —

@@ -4,8 +4,10 @@ The reference has no multi-node capability at all (SURVEY.md §2); this is
 the genuinely new distributed layer, built the JAX way: a ``Mesh`` with a
 ``seq`` axis, batched odometry states sharded along it via ``shard_map``,
 and pose-graph refinement whose normal-equation contributions are
-``psum``-reduced over an ``edge`` axis (collectives ride ICI, the solve is
-replicated — the Schur-reduction recipe from BASELINE.json).
+``psum``-reduced over an ``edge`` axis (XLA hands the collectives to NCCL
+over NVLink; the solve is replicated — the Schur-reduction recipe from
+BASELINE.json). The mesh is flat over ``jax.devices()``: every card
+reaches every other at the same rate, so its shape follows the algorithm.
 """
 
 from __future__ import annotations
@@ -31,14 +33,13 @@ def init_distributed(
 ) -> None:
     """Multi-host bring-up: initialize the jax.distributed runtime.
 
-    On TPU pods the three arguments are auto-detected from the environment
-    (``jax.distributed.initialize()`` with no args); elsewhere pass the
-    coordinator address ``host:port``, world size, and rank — or set
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID. After
-    this, ``jax.devices()`` spans all hosts and :func:`make_mesh` builds a
-    global mesh; the sharded step and distributed refine work unchanged
-    (collectives ride ICI within a slice, DCN across hosts). Safe to call
-    once per process; subsequent calls are ignored.
+    Pass the coordinator address ``host:port``, world size, and rank — or
+    set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID. With
+    none given, JAX auto-detects a cluster it knows (SLURM, Open MPI,
+    Kubernetes); where it finds none the process runs alone. After this,
+    ``jax.devices()`` spans all hosts and :func:`make_mesh` builds a global
+    mesh; the sharded step and distributed refine work unchanged. Safe to
+    call once per process; subsequent calls are ignored.
 
     Must run before any JAX computation or device query in the process —
     even ``jax.process_count()`` initializes the backend, after which the
@@ -51,24 +52,21 @@ def init_distributed(
 
     if jax.distributed.is_initialized():  # already initialized
         return
-    kw = {}
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coordinator:
-        kw = dict(
+        jax.distributed.initialize(  # misconfiguration must be loud
             coordinator_address=coordinator,
             num_processes=num_processes
             or int(os.environ.get("JAX_NUM_PROCESSES", "1")),
-            process_id=process_id
-            or int(os.environ.get("JAX_PROCESS_ID", "0")),
+            process_id=process_id or int(os.environ.get("JAX_PROCESS_ID", "0")),
         )
-        jax.distributed.initialize(**kw)  # misconfiguration must be loud
         return
     try:
-        # no coordinator given: TPU-pod auto-detection, or single-process
-        jax.distributed.initialize()
-    except (ValueError, RuntimeError):
-        # single-process environment (nothing to detect): run locally
-        pass
+        jax.distributed.initialize()  # cluster auto-detection
+    except ValueError as e:
+        if "coordinator_address" not in str(e):
+            raise
+        # no cluster detected: a single process, nothing to initialize
 
 
 def barrier(name: str, timeout_s: float = 600.0) -> None:

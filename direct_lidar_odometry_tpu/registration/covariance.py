@@ -5,12 +5,12 @@ each point, take its k nearest neighbors, form the neighborhood covariance,
 SVD it, and replace the singular values with ``(1, 1, 1e-3)``
 (RegularizationMethod::PLANE, ``gicp/gicp_settings.hpp:47``).
 
-TPU redesign: the regularized covariance depends only on the neighborhood's
+Redesign: the regularized covariance depends only on the neighborhood's
 *smallest eigenvector* (the local surface normal n):
 
     C_reg = R diag(1, 1, eps) R^T = I - (1 - eps) n n^T
 
-so this module computes and stores only ``normals [N, 3]`` — 3x less HBM
+so this module computes and stores only ``normals [N, 3]`` — 3x less memory
 traffic than 3x3 covariances and exactly equivalent under PLANE. Covariances
 are rebuilt on the fly where the Mahalanobis weights need them.
 
@@ -95,67 +95,14 @@ def estimate_normals_brute(
 ) -> Normals:
     """Normals from exact unbounded k-NN via tiled brute force.
 
-    The TPU path: matches the reference's kd-tree semantics exactly
-    (``nano_gicp_impl.hpp:313``, unbounded search) with zero gathers in
-    the distance phase. Preferred over the two-scale hash-grid variant
-    whenever O(N^2) distance FLOPs are cheaper than memory divergence —
-    i.e. on TPUs (see ops/bruteforce.py).
+    Matches the reference's kd-tree semantics exactly
+    (``nano_gicp_impl.hpp:313``, unbounded search) at O(N^2) distance
+    work; the "brute" backend's normals (see ops/bruteforce.py).
     """
     from direct_lidar_odometry_tpu.ops import bruteforce
 
     kidx, _, kvalid = bruteforce.query_knn(points, mask, points, mask, k=k, chunk=chunk)
     normal, valid, _ = _normals_from_knn(points, kidx, kvalid, mask, min_neighbors)
-    return Normals(normals=normal, valid=valid)
-
-
-def estimate_normals_radius(
-    points: jnp.ndarray,
-    mask: jnp.ndarray,
-    radius: float,
-    min_neighbors: int = 4,
-    interpret: bool | None = None,
-) -> Normals:
-    """Normals from ALL neighbors within ``radius`` via the Pallas moment
-    kernel (ops/pallas_cov.py) — the fast TPU path.
-
-    Differs from the reference's exact-k neighborhoods
-    (``nano_gicp_impl.hpp:310-321``) by using a fixed radius; on
-    voxel-downsampled clouds the density is uniform so the neighbor count
-    is stable, and plane fits over radius neighborhoods are as good
-    (validated against the exact-kNN normals in tests). min_neighbors
-    counts the point itself (the reference's kNN also returns self).
-    """
-    from direct_lidar_odometry_tpu.ops import pallas_cov
-
-    m = pallas_cov.radius_moments(points, mask, points, radius, interpret=interpret)
-    cov, count = pallas_cov.moments_to_cov(m)
-    normal, _ = eigh3.smallest_eigvec3(cov)
-    valid = mask & (count >= min_neighbors)
-    normal = jnp.where(valid[..., None], normal, jnp.asarray([0.0, 0.0, 1.0]))
-    return Normals(normals=normal, valid=valid)
-
-
-def estimate_normals_radius_sorted(
-    points: jnp.ndarray,
-    mask: jnp.ndarray,
-    chunk_lo: jnp.ndarray,
-    chunk_hi: jnp.ndarray,
-    radius: float,
-    min_neighbors: int = 4,
-    interpret: bool | None = None,
-) -> Normals:
-    """:func:`estimate_normals_radius` over a Morton-sorted cloud, using the
-    AABB-pruned moment kernel (~4x fewer pair ops at scan density)."""
-    from direct_lidar_odometry_tpu.ops import pallas_cov
-
-    m = pallas_cov.radius_moments_sorted(
-        points, mask, chunk_lo, chunk_hi, points, mask, radius,
-        interpret=interpret,
-    )
-    cov, count = pallas_cov.moments_to_cov(m)
-    normal, _ = eigh3.smallest_eigvec3(cov)
-    valid = mask & (count >= min_neighbors)
-    normal = jnp.where(valid[..., None], normal, jnp.asarray([0.0, 0.0, 1.0]))
     return Normals(normals=normal, valid=valid)
 
 

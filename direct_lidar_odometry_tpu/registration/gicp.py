@@ -35,32 +35,18 @@ import jax.numpy as jnp
 
 from direct_lidar_odometry_tpu.config import GicpStageConfig
 from direct_lidar_odometry_tpu.core import se3
-from direct_lidar_odometry_tpu.ops import bruteforce, hashgrid, morton, pallas_gicp, pallas_nn
+from direct_lidar_odometry_tpu.ops import bruteforce, hashgrid
 from direct_lidar_odometry_tpu.registration.covariance import PLANE_EPS, cov_from_normal
 from direct_lidar_odometry_tpu.utils.precision import f32_matmuls
-
-
-def is_pallas(backend: str) -> bool:
-    """All pallas variants: "pallas" (branch-and-bound 1-NN kernel + XLA
-    linearization epilogue — the production path; XLA fuses the gather +
-    einsum epilogue well enough that it costs <0.5 ms, while keeping the
-    kernel's inner loop lean) and "pallas_fused" (single fused
-    NN+Mahalanobis+H/b kernel, ops/pallas_gicp.py — measured SLOWER on
-    v5e: the in-loop payload selection adds an MXU op per chunk visit
-    that outweighs the epilogue it saves; kept for A/B and for shapes
-    where gathers dominate). "pallas_unfused" is an alias of "pallas"."""
-    return backend.startswith("pallas")
 
 
 class GicpTarget(NamedTuple):
     """A registration target in original point order.
 
-    ``grid`` is the hash index for the "hashgrid" backend and ``None`` for
-    the "brute" backend (tiled exhaustive search needs no index). For the
-    "pallas" backend the target cloud must be Morton-sorted (see
-    ops/morton.py) and ``chunk_lo``/``chunk_hi`` hold its [3, Nt//512]
-    per-chunk AABBs — the branch-and-bound index that replaces the
-    reference's kd-tree build (``nano_gicp_impl.hpp:127,137``).
+    ``grid`` is the hash index for the "hashgrid" backend (the role of the
+    reference's kd-tree build, ``nano_gicp_impl.hpp:127,137``) and
+    ``None`` for the "brute" backend (tiled exhaustive search needs no
+    index).
     """
 
     points: jnp.ndarray         # [Nt, 3]
@@ -68,8 +54,6 @@ class GicpTarget(NamedTuple):
     normals: jnp.ndarray        # [Nt, 3]
     normals_valid: jnp.ndarray  # [Nt]
     grid: hashgrid.HashGrid | None
-    chunk_lo: jnp.ndarray | None = None  # [3, Nt//512] (pallas backend)
-    chunk_hi: jnp.ndarray | None = None
 
 
 class GicpSource(NamedTuple):
@@ -93,28 +77,21 @@ def make_target(
     points, mask, normals, normals_valid, radius, table_size,
     backend: str = "hashgrid",
 ) -> GicpTarget:
-    """Build the per-backend search index over the target cloud.
-
-    For ``backend="pallas"`` the caller must supply ``points`` already in
-    Morton order (pipeline sorts every scan once after preprocessing).
-    """
+    """Build the per-backend search index over the target cloud."""
     grid = (
         hashgrid.build(points, mask, radius, table_size)
         if backend == "hashgrid"
         else None
     )
-    chunk_lo = chunk_hi = None
-    if is_pallas(backend):
-        chunk_lo, chunk_hi = morton.chunk_aabbs(points, mask, morton.TARGET_CHUNK)
     return GicpTarget(
         points=points, mask=mask, normals=normals,
         normals_valid=normals_valid, grid=grid,
-        chunk_lo=chunk_lo, chunk_hi=chunk_hi,
     )
 
 
 def _sym_inv3(m: jnp.ndarray) -> jnp.ndarray:
-    """Analytic inverse of symmetric [..., 3, 3] via adjugate (VPU-friendly)."""
+    """Analytic inverse of symmetric [..., 3, 3] via adjugate (elementwise,
+    fusable)."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e = m[..., 1, 1], m[..., 1, 2]
     f = m[..., 2, 2]
@@ -151,20 +128,10 @@ def _update_correspondences(
     x0: jnp.ndarray, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
     cap: int, backend: str,
 ):
-    """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211.
-
-    Serves the non-fused backends; backend "pallas_fused" takes the fused
-    kernel path in :func:`_linearize` and never calls this.
-    """
+    """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211."""
     r = x0[:3, :3]
     p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
-    if is_pallas(backend):
-        idx, _, found = pallas_nn.query_1nn_sorted(
-            target.points, target.mask, target.chunk_lo, target.chunk_hi,
-            p_t, src.mask, cfg.max_correspondence_distance,
-            mxu=(backend == "pallas_mxu"),
-        )
-    elif backend == "brute":
+    if backend == "brute":
         tile = min(8192, target.points.shape[0])
         idx, _, found = bruteforce.query_1nn(
             target.points, target.mask, p_t, src.mask,
@@ -191,36 +158,9 @@ def _update_correspondences(
 
 def _linearize(
     x0: jnp.ndarray, src: GicpSource, target: GicpTarget, cfg, cap, backend,
-    seed_corr: jnp.ndarray | None = None,
 ) -> _Linearization:
-    """Reference nano_gicp_impl.hpp:213-270 as one fused masked reduction.
-
-    backend "pallas_fused": single fused Pallas pass (ops/pallas_gicp.py)
-    — NN search, Mahalanobis, and H/b accumulation in one VMEM traversal.
-    Other backends (including the default "pallas"): 1-NN query + XLA
-    einsum reduction, which measures faster on v5e (see :func:`is_pallas`).
-
-    ``seed_corr``: previous-iteration correspondences to warm-start the
-    fused kernel's branch-and-bound (exact — see
-    pallas_gicp.fused_linearize; measured a net loss on v5e, the seed
-    prep outweighs the visits it saves, so ``align`` does not use it).
-    """
-    if backend == "pallas_fused":
-        r = x0[:3, :3]
-        p_t = se3.transform_points(x0, src.points)
-        m0 = src.normals @ r.T
-        qw = src.mask & src.normals_valid
-        fl = pallas_gicp.fused_linearize(
-            target.points, target.mask, target.normals, target.normals_valid,
-            target.chunk_lo, target.chunk_hi, p_t, m0, qw,
-            cfg.max_correspondence_distance, PLANE_EPS,
-            seed_corr=seed_corr,
-        )
-        return _Linearization(
-            h=fl.h, b=fl.b, error=fl.error, corr=fl.corr, weight=fl.weight,
-            mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr,
-        )
-
+    """Reference nano_gicp_impl.hpp:213-270: 1-NN query, then one fused
+    masked einsum reduction for H, b and the error."""
     corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(
         x0, src, target, cfg, cap, backend
     )
@@ -318,9 +258,7 @@ def align(
     Faithful to ``LsqRegistration::computeTransformation``
     (``lsq_registration_impl.hpp:89-115``) with the reference-default LM
     inner step, or plain GN when ``cfg.optimizer == "gn"``.
-    ``backend``: "pallas" (NN kernel + XLA epilogue), "pallas_fused",
-    "hashgrid", or
-    "brute" (see config.resolve_backend).
+    ``backend``: "hashgrid" or "brute" (see config.resolve_backend).
     """
     eye6 = jnp.eye(6, dtype=jnp.float32)
 

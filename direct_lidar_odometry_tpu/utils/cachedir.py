@@ -1,37 +1,35 @@
-"""Machine-scoped persistent-compilation-cache directories.
+"""Where the persistent XLA compilation cache lives.
 
-The XLA persistent cache stores CPU AOT blobs compiled for the *exact*
-feature set of the compiling host. Loading them on a host with different
-CPU features logs ``cpu_aot_loader`` "machine feature mismatch ... could
-lead to SIGILL" errors (observed when a cache written on the builder box
-was read on the driver box). Scoping the cache directory by a signature of
-the host's CPU feature flags makes each machine populate its own cache, so
-wrong-machine code can never load.
+``JAX_COMPILATION_CACHE_DIR``, when set, is used as given (JAX reads it
+itself). Otherwise the cache goes to ``<checkout>/.jax_cache``: a fixed
+path, because the directory is part of the cache's key, and one inside the
+checkout, so that the program writes nothing outside it.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def machine_tag() -> str:
-    """Short stable signature of this host's ISA-relevant identity."""
-    sig = platform.machine() + ";" + platform.processor()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                # first 'flags' + 'model name' lines identify the feature set
-                if line.startswith(("flags", "model name")):
-                    sig += ";" + line.strip()
-                if sig.count(";") >= 3:
-                    break
-    except OSError:
-        pass
-    return hashlib.sha256(sig.encode()).hexdigest()[:10]
+def cache_dir() -> str:
+    """The compilation-cache directory this process uses."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
 
 
-def machine_scoped(cache_dir: str) -> str:
-    """``cache_dir`` with a per-machine suffix directory appended."""
-    return os.path.join(cache_dir, machine_tag())
+def configure() -> str:
+    """Point JAX's persistent compilation cache at :func:`cache_dir` and
+    cache every compiled program, however small. Returns the directory."""
+    import jax
+
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR):
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    return path

@@ -1,14 +1,18 @@
 """Matmul precision guard.
 
-On TPU, JAX's default matmul precision truncates f32 operands to bf16
-(8-bit mantissa) on the MXU. For neural nets that is the right trade; for
-geometry it is catastrophic: point transforms, Jacobian products, and pose
-compositions accumulate ~0.4% relative error and odometry diverges by
-meters (observed: 18 m ATE on a sequence that tracks at 0.2 cm with f32).
+Float32 matrix products may run at reduced precision unless asked not to:
+on an NVIDIA GPU, XLA may route them through TF32 tensor cores, which keep
+a 10-bit mantissa (about three decimal digits). For neural nets that is
+the right trade; for geometry it is not. Point transforms, Jacobian
+products and pose compositions at map-scale coordinates (tens to hundreds
+of meters) then carry ~1e-3 relative error, which is centimeters per
+transform, and odometry drifts by meters over a sequence.
 
 Every public jitted entry point of this framework traces under
-``jax.default_matmul_precision("float32")`` via this decorator, so callers
-get correct results regardless of their global config.
+``jax.default_matmul_precision("float32")`` via this decorator, so every
+``dot_general`` it lowers carries ``HIGHEST`` precision (full float32, no
+TF32) whatever the caller's global config. tests/test_precision.py checks
+the lowered step, chunked step and pose-graph refine for it.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import jax
 
 
 def f32_matmuls(fn):
-    """Trace ``fn`` with full-f32 matmul precision (TPU: 3-pass MXU)."""
+    """Trace ``fn`` with full-float32 matmul precision (no TF32)."""
 
     @wraps(fn)
     def wrapped(*args, **kwargs):

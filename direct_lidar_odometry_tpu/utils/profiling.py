@@ -100,7 +100,7 @@ def dashboard(frame_idx, position, quat, distance_traveled, timing: TimingStats,
     ram_line = f"| RAM  {rss_mb():8.1f} MB{cpu_part}"
     lines = [
         "+" + "-" * 60 + "+",
-        f"| DLO-TPU  frame {frame_idx:<6}  keyframes {num_keyframes:<5}" + " " * 17 + "|",
+        f"| DLO-JAX  frame {frame_idx:<6}  keyframes {num_keyframes:<5}" + " " * 17 + "|",
         f"| pos  [{position[0]:+8.2f} {position[1]:+8.2f} {position[2]:+8.2f}] m"
         + " " * 17 + "|",
         f"| quat [{quat[0]:+6.3f} {quat[1]:+6.3f} {quat[2]:+6.3f} {quat[3]:+6.3f}]"

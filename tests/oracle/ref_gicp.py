@@ -2,8 +2,8 @@
 NanoGICP + LsqRegistration semantics (nano_gicp_impl.hpp /
 lsq_registration_impl.hpp), using scipy cKDTree for exact NN.
 
-Used to validate the TPU implementation's numerics and, run end-to-end,
-as the CPU baseline denominator (BASELINE.md). Written from the algorithm
+Used to validate the JAX implementation's numerics and, run end-to-end,
+as a CPU baseline. Written from the algorithm
 description in SURVEY.md §3.3 — double precision throughout, matching the
 reference's Eigen::Matrix4d pipeline.
 """

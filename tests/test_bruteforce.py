@@ -1,19 +1,21 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 from scipy.spatial import cKDTree
 
 from direct_lidar_odometry_tpu.ops import bruteforce
 from direct_lidar_odometry_tpu.registration import covariance
 
 
-def test_brute_1nn_matches_kdtree(rng):
+@pytest.mark.parametrize("tile", [256, 384])  # 384: a padded partial tile
+def test_brute_1nn_matches_kdtree(rng, tile):
     tgt = rng.uniform(-10, 10, size=(1024, 3)).astype(np.float32)
     qry = (tgt[:512] + rng.normal(scale=0.3, size=(512, 3))).astype(np.float32)
     tmask = np.ones(1024, bool)
     tmask[900:] = False
     idx, d2, found = bruteforce.query_1nn(
         jnp.asarray(tgt), jnp.asarray(tmask), jnp.asarray(qry),
-        jnp.ones(512, bool), radius=1.0, tile=256,
+        jnp.ones(512, bool), radius=1.0, tile=tile,
     )
     tree = cKDTree(tgt[:900])
     dref, iref = tree.query(qry, k=1)

@@ -3,7 +3,7 @@
 The baseline is the measured reference denominator (BASELINE.md); this
 test keeps it honest: it must build, run the dump format round-trip, and
 track a synthetic world within tight ATE on the same evaluator used for
-the TPU pipeline.
+the JAX pipeline.
 """
 
 import json

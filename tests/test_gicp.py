@@ -69,7 +69,7 @@ def test_gicp_gn_mode(rng):
 
 
 def test_gicp_matches_oracle(rng):
-    """TPU-path result should land close to the f64 oracle's pose."""
+    """The f32 JAX result should land close to the f64 oracle's pose."""
     pts = structured_cloud(rng, n=1000)
     w_true = np.array([0.0, 0.0, 0.04], np.float32)
     t_true = np.array([0.4, -0.1, 0.0], np.float32)
@@ -110,3 +110,52 @@ def test_gicp_guess_initialization(rng):
     T_est = np.asarray(res.transform)
     dr = T_est[:3, :3] @ T_true[:3, :3].T
     assert np.degrees(np.arccos(np.clip((np.trace(dr) - 1) / 2, -1, 1))) < 0.5
+
+
+def test_compute_error_matches_direct():
+    """_compute_error's columnwise Mahalanobis == explicit 3x3 math."""
+    from direct_lidar_odometry_tpu.config import load_config
+    from direct_lidar_odometry_tpu.registration.covariance import PLANE_EPS
+
+    rng = np.random.default_rng(1)
+    # targets on a jittered grid, sources near them with random normals
+    nt, ns = 1024, 512
+    gx, gy = np.meshgrid(np.arange(32), np.arange(32))
+    base = np.stack([gx.ravel(), gy.ravel()], axis=1)[:nt] * 1.0
+    tgt = np.concatenate([base + rng.uniform(-0.3, 0.3, base.shape),
+                          rng.uniform(0, 2.0, (nt, 1))], axis=1).astype(np.float32)
+    tnorm = rng.normal(size=(nt, 3)).astype(np.float32)
+    tnorm /= np.linalg.norm(tnorm, axis=1, keepdims=True)
+    src = tgt[rng.choice(nt, ns)] + rng.normal(0, 0.05, (ns, 3)).astype(np.float32)
+    snorm = rng.normal(size=(ns, 3)).astype(np.float32)
+    snorm /= np.linalg.norm(snorm, axis=1, keepdims=True)
+    target = gicp.make_target(jnp.asarray(tgt), jnp.ones(nt, bool),
+                              jnp.asarray(tnorm), jnp.asarray(rng.random(nt) > 0.1),
+                              0.5, 4096, backend="brute")
+    source = gicp.GicpSource(points=jnp.asarray(src), mask=jnp.ones(ns, bool),
+                             normals=jnp.asarray(snorm),
+                             normals_valid=jnp.asarray(rng.random(ns) > 0.1))
+    cfg = load_config().gicp.s2m
+    x0 = jnp.eye(4, dtype=jnp.float32)
+    lin = gicp._linearize(x0, source, target, cfg, 32, "brute")
+    assert int(lin.n_corr) > 200
+
+    xi = se3.se3_exp(jnp.asarray([0.01, 0.0, -0.01, 0.02, 0.01, 0.0],
+                                 jnp.float32))
+    got = float(gicp._compute_error(xi, source, lin))
+
+    # oracle: explicit per-point 3x3 inverse
+    p_t = np.asarray(se3.transform_points(xi, source.points), np.float64)
+    mu_b = np.asarray(lin.mu_b, np.float64)
+    n_b = np.asarray(lin.n_b, np.float64)
+    m0 = np.asarray(lin.m0, np.float64)
+    w = np.asarray(lin.weight, np.float64)
+    want = 0.0
+    a = 1.0 - PLANE_EPS
+    for i in range(len(w)):
+        if w[i] < 0.5:
+            continue
+        A = 2 * np.eye(3) - a * (np.outer(n_b[i], n_b[i]) + np.outer(m0[i], m0[i]))
+        e = mu_b[i] - p_t[i]
+        want += e @ np.linalg.inv(A) @ e
+    np.testing.assert_allclose(got, want, rtol=1e-4)

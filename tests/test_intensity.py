@@ -1,7 +1,7 @@
 """Intensity channel parity (reference pcl::PointXYZI, dlo/dlo.h:50).
 
 The reference carries intensity end-to-end through every PCL filter; the
-TPU framework keeps it OFF the device hot path (it is algorithmically
+JAX framework keeps it OFF the device hot path (it is algorithmically
 unused in the reference too) and instead mirrors keyframe scans host-side
 (runner intensity sidecar) so map export preserves a per-point intensity:
 KITTI xyzi in -> odometry -> PLY xyzi map out.

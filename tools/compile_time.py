@@ -2,8 +2,7 @@
 
 Measures trace (host) + XLA compile time of the production step program
 and ablated variants, with the persistent cache disabled, to attribute the
-multi-minute first-frame compile (BENCH_r03: 292 s on the driver box) and
-validate reductions. Run on the TPU:
+first-frame compile and validate reductions. Run on the GPU:
 
     python tools/compile_time.py [variant ...]
 
@@ -16,8 +15,6 @@ from __future__ import annotations
 import os
 import sys
 import time
-
-os.environ["DLO_TPU_NO_CACHE"] = "1"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -59,9 +56,13 @@ def abstract_args(cfg, chunk: int | None = None):
 def main() -> None:
     import dataclasses
 
+    import jax
+
     import bench
     from direct_lidar_odometry_tpu.odometry import pipeline
 
+    # measure real compiles: no persistent-cache hits
+    jax.config.update("jax_enable_compilation_cache", False)
     variants = sys.argv[1:] or ["full"]
     base = bench.production_cfg()
 

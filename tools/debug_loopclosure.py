@@ -103,7 +103,7 @@ def main() -> None:
 
     pg = cfg.posegraph
     backend = resolve_backend(cfg)
-    # f32 matmuls: on TPU the default bf16 corrupts pose composition at
+    # f32 matmuls: reduced-precision products corrupt pose composition at
     # map scale (the bug this tool found); match the runner's guarded path
     _f32 = jax.default_matmul_precision("float32")
     _f32.__enter__()

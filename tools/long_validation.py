@@ -5,7 +5,7 @@ only appear at length — keyframe-ring saturation/eviction, submap
 re-selection on revisit, loop-closure + pose-graph refinement, drift
 accumulation — and reports ATE with and without refinement.
 
-Run on TPU (production shapes):   python tools/long_validation.py
+Run on the GPU (production shapes): python tools/long_validation.py
 Quick CPU check (small shapes):   SMALL=1 LV_FRAMES=120 JAX_PLATFORMS=cpu \
                                       python tools/long_validation.py
 DEGRADE=1 starves the GICP iteration budget (s2s/s2m max_iterations 3/2,

@@ -8,7 +8,7 @@ constantly-turning closed-loop trajectory — the worst case for stale
 hulls — instead of assuming it.
 
 CPU (small shapes):  JAX_PLATFORMS=cpu python tools/staleness_sweep.py
-TPU (production):    SMALL=0 python tools/staleness_sweep.py
+GPU (production):    SMALL=0 python tools/staleness_sweep.py
 Env: SS_FRAMES (default 96), SS_CHUNKS (default "1,8,16,32").
 Prints one JSON line per chunk size.
 """
